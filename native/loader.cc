@@ -1,6 +1,6 @@
 // Native event loader: CSV -> packed arrays + union-find components.
 //
-// TPU-native replacement for the reference's pandas ingest path
+// Native replacement for the reference's pandas ingest path
 // (helper.py:524-581, construct_graph at helper.py:465-520,
 // nx.weakly_connected_components at event_conversion.py:84): one pass of
 // hand-rolled CSV parsing into struct-of-arrays buffers, pair dedup with

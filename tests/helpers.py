@@ -2,7 +2,7 @@
 
 import jax
 
-from gnn_track_finding_tpu.ops import seeding, priors, clustering, extrapolate
+from gnn_track_finding.ops import seeding, priors, clustering, extrapolate
 
 seed_j = jax.jit(seeding.seed_track_states, static_argnums=1)
 weights_j = jax.jit(priors.compute_mixture_weights, static_argnums=1)

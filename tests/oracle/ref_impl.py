@@ -1,9 +1,9 @@
 """NumPy oracle of the reference pipeline's semantics.
 
-A from-scratch, line-cited re-statement of the algorithms in
-/root/reference (NOT a copy): it operates on NetworkX graphs with the
+A from-scratch, line-cited re-statement of the algorithms in the
+reference repository (NOT a copy): it operates on NetworkX graphs with the
 reference's attribute schema and reproduces its numerics — including the
-load-bearing quirks flagged in SURVEY.md — so the TPU kernels can be tested
+load-bearing quirks flagged in SURVEY.md — so the device kernels can be tested
 against it, and it in turn can be tested against the actual reference
 modules where those are importable (helper/clustering are pure numpy).
 

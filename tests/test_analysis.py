@@ -1,9 +1,9 @@
 import numpy as np
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
-from gnn_track_finding_tpu.analysis import (community, distributions, pulls,
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc, pipeline
+from gnn_track_finding.analysis import (community, distributions, pulls,
                                             remaining, state_distances)
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
@@ -73,7 +73,7 @@ def test_average_linkage_matches_scipy():
     scipy.cluster.hierarchy.linkage (the reference study's sch.linkage,
     weight_v_angle_dist_stats.py:124-126)."""
     import scipy.cluster.hierarchy as sch
-    from gnn_track_finding_tpu.analysis import shared_hits
+    from gnn_track_finding.analysis import shared_hits
     rng = np.random.default_rng(0)
     for m in (2, 3, 5, 9, 16):
         feats = rng.normal(size=(m, 2))
@@ -87,7 +87,7 @@ def test_dendrogram_statistics():
     """The shared-hit dendrogram repetition study
     (run_dendograms_statistics.sh:4-12) produces finite maxima for both
     iterations."""
-    from gnn_track_finding_tpu.analysis import shared_hits
+    from gnn_track_finding.analysis import shared_hits
     res = shared_hits.dendrogram_statistics(
         num_runs=2, seed=11, cfg=CFG, num_tracks=16,
         toy_kwargs={"edge_dphi_window": 0.12})
@@ -102,7 +102,7 @@ def test_quality_check_extracted_candidates():
     """The candidate audit (quality_check_extracted_candidates.py:47-129):
     every accepted candidate passes all four structural invariants on the
     toy workload, and a planted fragment fails test 1."""
-    from gnn_track_finding_tpu.analysis import quality_check
+    from gnn_track_finding.analysis import quality_check
     ev = toymc.generate_event(seed=11, num_tracks=16, edge_dphi_window=0.12)
     g, _ = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, CFG)
     out = pipeline.run_pipeline(g, CFG)
@@ -132,7 +132,7 @@ def test_close_proximity_separations():
     """r&d/remaining/close_proximity_module_hits.py analog: a remaining
     component with one doubled layer whose pair shares a common
     neighbour yields its 3D separation and the percentile cut."""
-    from gnn_track_finding_tpu.analysis import remaining as rem
+    from gnn_track_finding.analysis import remaining as rem
 
     # two parallel tracks merged at one layer: layer 2 holds two hits
     # that both connect to the layer-1 hit (common neighbour)
@@ -164,9 +164,9 @@ def test_node_weight_distributions_and_remaining_plots(tmp_path):
     """r&d/node_weight_dist/test_weight_dist.py +
     r&d/remaining/plot_remaining_subgraphs.py analogs on a pipeline-run
     toy event."""
-    from gnn_track_finding_tpu.analysis import remaining as rem
-    from gnn_track_finding_tpu.analysis import distributions
-    from gnn_track_finding_tpu.models import pipeline
+    from gnn_track_finding.analysis import remaining as rem
+    from gnn_track_finding.analysis import distributions
+    from gnn_track_finding.models import pipeline
 
     ev = toymc.generate_event(seed=11, num_tracks=16)
     cfg = PipelineConfig(node_bucket=64, edge_bucket=256)
@@ -202,7 +202,7 @@ def test_leiden_planted_partition():
     (the Leiden guarantee Louvain lacks), deterministic per seed, and
     modularity is computed correctly."""
     import networkx as nx
-    from gnn_track_finding_tpu.analysis import leiden
+    from gnn_track_finding.analysis import leiden
 
     rng = np.random.default_rng(3)
     n = 24
@@ -272,7 +272,7 @@ def test_leiden_adversarial_properties():
     differently-randomized Louvain is not a property of either
     algorithm)."""
     import networkx as nx
-    from gnn_track_finding_tpu.analysis import leiden
+    from gnn_track_finding.analysis import leiden
 
     rng = np.random.default_rng(17)
     diffs = []

@@ -2,14 +2,15 @@ import os
 
 import numpy as np
 import networkx as nx
+import pytest
 import jax.numpy as jnp
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph import cca
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
-from gnn_track_finding_tpu.ops import metrics
-from gnn_track_finding_tpu.utils import timing, checkpoint
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph import cca
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc, pipeline
+from gnn_track_finding.ops import metrics
+from gnn_track_finding.utils import timing, checkpoint
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 
@@ -89,7 +90,7 @@ def test_prefetch_preserves_order_and_values():
     """Double-buffered prefetch (data/prefetch.py) yields the same device
     states, in order, as sequential loading — including with a slow
     factory in the middle and depth > len(stream)."""
-    from gnn_track_finding_tpu.data import prefetch as pf
+    from gnn_track_finding.data import prefetch as pf
     import time as _time
 
     def make(seed, slow=False):
@@ -116,7 +117,7 @@ def test_prefetch_preserves_order_and_values():
 
 
 def test_prefetch_propagates_factory_error_in_position():
-    from gnn_track_finding_tpu.data import prefetch as pf
+    from gnn_track_finding.data import prefetch as pf
 
     def boom():
         raise RuntimeError("ingest failed")
@@ -142,10 +143,10 @@ def test_gather1d_oob_contract():
     fallback), matching plain x[idx]; onehot_select/table_lookup
     zero-fill out-of-range columns.  Pinned because the blocked form's
     floor-div/mod arithmetic would otherwise return an arbitrary
-    in-range element (ADVICE.md round 3, VERDICT round 3 weak #4)."""
+    in-range element."""
     import jax.numpy as jnp
     import numpy as np
-    from gnn_track_finding_tpu.ops import gtools
+    from gnn_track_finding.ops import gtools
 
     for n in (128, 96):          # blocked path / width-2 fallback
         x = jnp.arange(n, dtype=jnp.int32) * 3 + 1
@@ -159,3 +160,26 @@ def test_gather1d_oob_contract():
     col = jnp.asarray([-1, 4, 2], dtype=jnp.int32)
     got = np.asarray(gtools.onehot_select(rows, col))
     assert np.array_equal(got, [0, 0, 10])
+
+
+@pytest.mark.parametrize("width", [3, 8])
+def test_compact_rows_matches_python_oracle(width):
+    """gtools.compact_rows moves each row's kept entries to the front in
+    order (first `width` of them), zero-fills behind them, and copies values
+    exactly: infinities in dropped slots never leak into kept ones."""
+    from gnn_track_finding.ops import gtools
+
+    rng = np.random.default_rng(7)
+    keep = rng.random((6, 8)) < 0.5
+    keep[0] = False                       # an empty row
+    keep[1] = True                        # a full row, cut to width
+    x = rng.normal(size=(6, 8, 3))
+    x[~keep] = np.inf
+    got, valid = gtools.compact_rows(jnp.asarray(keep), jnp.asarray(x), width)
+    want = np.zeros((6, width, 3))
+    for r in range(6):
+        kept = x[r][keep[r]][:width]
+        want[r, :len(kept)] = kept
+        assert np.array_equal(np.asarray(valid[r]),
+                              np.arange(width) < len(kept))
+    assert np.array_equal(np.asarray(got), want)

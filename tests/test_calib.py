@@ -1,9 +1,9 @@
 import numpy as np
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.calib import training_data, lut
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.calib import training_data, lut
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc, pipeline
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 
@@ -75,7 +75,7 @@ def test_calib_plots_and_lut_study(tmp_path):
     """Downsample/balancing (downsample.py:6-24), decision-boundary plot
     (train_svm.py:200-275), parabolic-vs-linear comparison, LUT-effect
     confusion study."""
-    from gnn_track_finding_tpu.calib import plots
+    from gnn_track_finding.calib import plots
 
     rows = training_data.generate_training_data(num_events=4, seed=3,
                                                 cfg=CFG, num_tracks=12)

@@ -16,10 +16,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
-from gnn_track_finding_tpu.parallel import edge_shard
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.graph.state import is_static
+from gnn_track_finding.models import toymc, pipeline
+from gnn_track_finding.parallel import edge_shard
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 
@@ -47,7 +48,7 @@ def test_edge_sharded_stage_matches_single_device():
     sharded = edge_shard.extrapolation_stage_sharded(CFG, mesh)(gs)
 
     for f in dataclasses.fields(type(g)):
-        if not f.metadata.get("pytree_node", True):
+        if is_static(f):
             continue
         a = np.asarray(getattr(single, f.name))
         b = np.asarray(getattr(sharded, f.name))
@@ -117,7 +118,7 @@ def test_owner_routing_stage_matches_single_device():
         CFG, mesh, routing=routing)(gs)
 
     for f in dataclasses.fields(type(g)):
-        if not f.metadata.get("pytree_node", True):
+        if is_static(f):
             continue
         a = np.asarray(getattr(single, f.name))
         b = np.asarray(getattr(sharded, f.name))
@@ -157,7 +158,7 @@ def _fresh_graph(num_tracks=20, seed=3):
 
 def _assert_graphs_match(single, sharded):
     for f in dataclasses.fields(type(single)):
-        if not f.metadata.get("pytree_node", True):
+        if is_static(f):
             continue
         a = np.asarray(getattr(single, f.name))
         b = np.asarray(getattr(sharded, f.name))

@@ -1,10 +1,10 @@
 import numpy as np
 import jax
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc
-from gnn_track_finding_tpu.ops import extract
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc
+from gnn_track_finding.ops import extract
 
 from tests import helpers
 from tests.oracle import ref_impl

@@ -1,8 +1,8 @@
 import numpy as np
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc
 
 from tests import helpers
 from tests.oracle import ref_impl
@@ -95,14 +95,14 @@ def test_prior_reweight_fused_matches_separate():
     packed node-table gather) is numerically identical to
     compute_prior_probabilities -> reweight."""
     import jax
-    from gnn_track_finding_tpu.models import pipeline as pl
-    from gnn_track_finding_tpu.ops import priors
+    from gnn_track_finding.models import pipeline as pl
+    from gnn_track_finding.ops import priors
 
     ev = toymc.generate_event(seed=9, num_tracks=18, edge_dphi_window=0.12)
     g, _ = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, CFG)
     g = pl._prepare_jit(g, CFG)
     g = pl._stage_jit(g, CFG, 1, None)
-    from gnn_track_finding_tpu.ops import extrapolate
+    from gnn_track_finding.ops import extrapolate
     g = jax.jit(extrapolate.message_passing, static_argnums=1)(g, CFG)
 
     a = priors.reweight(
@@ -130,8 +130,8 @@ def test_reweight_stage_matches_double_prior_reweight():
     mixture denominator is a row-sum over in-table slots instead of a
     segment_sum over edges."""
     import jax
-    from gnn_track_finding_tpu.models import pipeline as pl
-    from gnn_track_finding_tpu.ops import extrapolate, priors
+    from gnn_track_finding.models import pipeline as pl
+    from gnn_track_finding.ops import extrapolate, priors
 
     ev = toymc.generate_event(seed=11, num_tracks=24, edge_dphi_window=0.15)
     g, _ = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, CFG)
@@ -149,3 +149,28 @@ def test_reweight_stage_matches_double_prior_reweight():
                                   np.asarray(b.upd_prior))
     np.testing.assert_allclose(np.asarray(a.upd_weight),
                                np.asarray(b.upd_weight), rtol=1e-12)
+
+
+def test_distinct_counts_match_set_oracle():
+    """priors._distinct_counts: per (node, side), the number of DISTINCT
+    x values among the ok slots (helper.py:127-134 len(set())), on
+    duplicate-heavy tables, against a plain NumPy set count."""
+    import jax.numpy as jnp
+
+    from gnn_track_finding.ops import priors
+
+    rng = np.random.default_rng(0)
+    n, k = 64, 16
+    x_vals = rng.choice([1.5, 2.5, 3.5, -1.0, 0.0], size=(n, k))
+    ok = rng.uniform(size=(n, k)) < 0.6
+    x_slot = np.where(ok, x_vals, 0.0)
+    node_x = rng.normal(size=(n,)) * 2.0
+    left = x_slot < node_x[:, None]
+    got = np.asarray(priors._distinct_counts(
+        jnp.asarray(ok), jnp.asarray(x_slot), jnp.asarray(left),
+        jnp.float64))
+    want = np.array([[len({x_slot[i, j] for j in range(k)
+                           if ok[i, j] and left[i, j] == side})
+                      for side in (True, False)] for i in range(n)])
+    np.testing.assert_array_equal(got, want)
+    assert (want > 1).any() and (want < ok.sum(axis=1)[:, None]).any()

@@ -1,9 +1,9 @@
 import numpy as np
 import networkx as nx
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 
@@ -130,7 +130,7 @@ def test_nxorder_extraction_candidate_orders():
         # tracker replica: reuse extraction_merges internals by probing
         # the candidate orders via the mutation path is indirect; instead
         # validate the building blocks it uses
-        from gnn_track_finding_tpu.graph import nxorder
+        from gnn_track_finding.graph import nxorder
         tr = host.tracker
         got = []
         for subg in tr.subgraphs:
@@ -164,7 +164,7 @@ def test_cca_fastsv_matches_paired():
     under random edge deactivation."""
     import random
     import jax.numpy as jnp
-    from gnn_track_finding_tpu.graph import cca
+    from gnn_track_finding.graph import cca
 
     for seed in (0, 2, 4):
         ev, g, _ = build_toy(seed=seed, num_tracks=14)
@@ -199,7 +199,7 @@ def test_cca_gated_extraction_exact():
     label_ok.  Adversarial permuted paths need >warm_rounds hooking
     rounds, exercising the while-loop tail."""
     import jax
-    from gnn_track_finding_tpu.graph import cca
+    from gnn_track_finding.graph import cca
 
     rng = np.random.default_rng(7)
     H = 16
@@ -256,8 +256,8 @@ def test_event_cache_round_trip(tmp_path):
     reproduce the cold build's GraphState bit-exactly, including the
     set()-order mirror table, with the tracker skipped on request."""
     import jax.tree_util as jtu
-    from gnn_track_finding_tpu.models import toymc
-    from gnn_track_finding_tpu.data import event_cache
+    from gnn_track_finding.models import toymc
+    from gnn_track_finding.data import event_cache
 
     ev = toymc.generate_event(seed=3, num_tracks=12, edge_dphi_window=0.12)
     cfg = PipelineConfig(node_bucket=64, edge_bucket=256)
@@ -291,7 +291,7 @@ def test_clean_mode_skips_mirror_and_never_caches_identity(tmp_path):
     later bug-compat load would read a wrong mirror)."""
     import dataclasses
     import os
-    from gnn_track_finding_tpu.models import toymc
+    from gnn_track_finding.models import toymc
 
     ev = toymc.generate_event(seed=3, num_tracks=12, edge_dphi_window=0.12)
     clean = dataclasses.replace(PipelineConfig(node_bucket=64,
@@ -310,7 +310,7 @@ def test_clean_mode_skips_mirror_and_never_caches_identity(tmp_path):
     assert (np.asarray(gp.mirror)[:e] != np.arange(e)).any()
     # pipeline results agree between clean builds with and without the
     # (unused) order emulation
-    from gnn_track_finding_tpu.models import pipeline
+    from gnn_track_finding.models import pipeline
     g2, _ = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs,
                               clean, with_tracker=True)
     out1 = pipeline.run_pipeline_fast(g, clean)

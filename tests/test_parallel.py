@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
-from gnn_track_finding_tpu.parallel import mesh as pmesh
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc, pipeline
+from gnn_track_finding.parallel import mesh as pmesh
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 

@@ -1,9 +1,10 @@
 import numpy as np
 import networkx as nx
+import pytest
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc, pipeline
 
 from tests.oracle import ref_impl
 
@@ -68,7 +69,7 @@ def test_reconstruction_efficiency_parity_nonzero():
     semantics' efficiency, and both are > 0.
 
     Reference formula: reconstruction_efficiency.py:66,155-187,213-218."""
-    from gnn_track_finding_tpu.evaluation import efficiency
+    from gnn_track_finding.evaluation import efficiency
 
     ev = toymc.generate_event(seed=23, num_tracks=20, edge_dphi_window=0.12)
     g, _ = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, CFG)
@@ -210,7 +211,7 @@ def test_pack_unpack_results_round_trip():
     p-values, odd and even node-section lengths."""
     import itertools
     rng = np.random.default_rng(0)
-    from gnn_track_finding_tpu.models.pipeline import (pack_results,
+    from gnn_track_finding.models.pipeline import (pack_results,
                                                        unpack_results)
     for narrow, wide_pv, (cap, L) in itertools.product(
             (True, False), (True, False), ((5, 7), (4, 8))):
@@ -239,7 +240,7 @@ def test_unpack_packed_cap_overflow_falls_back(monkeypatch):
     driver must fall back to the exact-count stage driver rather than
     truncate candidates."""
     import jax.numpy as jnp
-    from gnn_track_finding_tpu.models.pipeline import (pack_results,
+    from gnn_track_finding.models.pipeline import (pack_results,
                                                        _unpack_packed)
     n_it, cap, L = CFG.num_iterations, 4, 6
     nodes = np.full((n_it, cap, L), -1, np.int32)
@@ -251,3 +252,22 @@ def test_unpack_packed_cap_overflow_falls_back(monkeypatch):
     monkeypatch.setattr(pipeline, "run_pipeline",
                         lambda g, cfg: sentinel)
     assert _unpack_packed("g_in", "g_out", buf, CFG) is sentinel
+
+
+@pytest.mark.gpu
+def test_gpu_schedule_matches_cpu_at_float64(gpu_device):
+    """The schedule compiled for the GPU gives the CPU's candidates at
+    float64: same node sets per iteration, p-values to 1e-9 (only the two
+    compilers' contraction and summation order differ)."""
+    import jax
+
+    ev = toymc.generate_event(seed=7, num_tracks=20, edge_dphi_window=0.12)
+    g, _ = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, CFG)
+    key = lambda c: (c.iteration, tuple(sorted(int(x) for x in c.nodes)))
+    run = lambda dev: sorted(pipeline.run_pipeline(
+        jax.device_put(g, dev), CFG).candidates, key=key)
+    cpu, gpu = run(jax.devices("cpu")[0]), run(gpu_device)
+    assert [key(c) for c in gpu] == [key(c) for c in cpu] and cpu
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose([a.pval_xy, a.pval_zr],
+                                   [b.pval_xy, b.pval_zr], rtol=1e-9)

@@ -12,10 +12,10 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc
-from gnn_track_finding_tpu.ops import priors
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc
+from gnn_track_finding.ops import priors
 
 
 def test_side_norms_distinct_on_near_coordinates_f32():

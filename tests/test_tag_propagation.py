@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph import cca, tag_propagation
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph import cca, tag_propagation
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 

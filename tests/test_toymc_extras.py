@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gnn_track_finding_tpu.config import PipelineConfig
-from gnn_track_finding_tpu.graph.build import build_graph_state
-from gnn_track_finding_tpu.models import toymc, pipeline
-from gnn_track_finding_tpu.ops import extrapolate, metrics
-from gnn_track_finding_tpu.analysis import stats_harness
+from gnn_track_finding.config import PipelineConfig
+from gnn_track_finding.graph.build import build_graph_state
+from gnn_track_finding.models import toymc, pipeline
+from gnn_track_finding.ops import extrapolate, metrics
+from gnn_track_finding.analysis import stats_harness
 
 CFG = PipelineConfig(node_bucket=64, edge_bucket=256)
 

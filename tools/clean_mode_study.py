@@ -42,18 +42,17 @@ def main() -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache/cpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gnn_track_finding.utils import platform
+    platform.enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
-    from gnn_track_finding_tpu.config import PipelineConfig
-    from gnn_track_finding_tpu.calib import lut as lut_mod
-    from gnn_track_finding_tpu.calib import training_data
-    from gnn_track_finding_tpu.evaluation import efficiency
-    from gnn_track_finding_tpu.graph.build import build_graph_state
-    from gnn_track_finding_tpu.models import pipeline, toymc
+    from gnn_track_finding.config import PipelineConfig
+    from gnn_track_finding.calib import lut as lut_mod
+    from gnn_track_finding.calib import training_data
+    from gnn_track_finding.evaluation import efficiency
+    from gnn_track_finding.graph.build import build_graph_state
+    from gnn_track_finding.models import pipeline, toymc
 
     base = PipelineConfig(node_bucket=256, edge_bucket=1024)
 
@@ -148,12 +147,12 @@ def main() -> None:
               f"frac tighter: {(thr < clean_base.kl_threshold_seed).mean():.2f}")
 
     if args.trackml:
-        from gnn_track_finding_tpu.data import trackml
+        from gnn_track_finding.data import trackml
         for name, cfg, use_lut in modes:
             cfg7 = dataclasses.replace(cfg, min_volume=7, max_volume=7,
                                        node_bucket=base.node_bucket,
                                        edge_bucket=base.edge_bucket)
-            g, host = trackml.load_event(trackml.DEFAULT_EVENT, cfg7,
+            g, host = trackml.load_event("trackml_v7", cfg7,
                                          dtype=jnp.float64)
             thr = None
             if use_lut:

@@ -25,7 +25,8 @@ section).  This study closes the loop on the real event:
 
 Results + conclusion are committed in docs/DESIGN.md.
 
-Usage: JAX_PLATFORMS=cpu python tools/lut_trackml_study.py [--volumes 7 14]
+Usage: python tools/lut_trackml_study.py [--volumes 7 14]
+(on the GPU; JAX_PLATFORMS=cpu runs it on the CPU)
 """
 
 from __future__ import annotations
@@ -48,24 +49,24 @@ def main() -> None:
 
     import jax
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      f"/root/repo/.jax_cache/{jax.default_backend()}")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gnn_track_finding.utils import platform
+    platform.require_gpu()
+    platform.enable_compile_cache()
     import numpy as np
     import jax.numpy as jnp
 
-    from gnn_track_finding_tpu.calib import lut as lutmod
-    from gnn_track_finding_tpu.calib import training_data
-    from gnn_track_finding_tpu.config import PipelineConfig
-    from gnn_track_finding_tpu.data import trackml
-    from gnn_track_finding_tpu.models import pipeline
-    from gnn_track_finding_tpu.ops import metrics
+    from gnn_track_finding.calib import lut as lutmod
+    from gnn_track_finding.calib import training_data
+    from gnn_track_finding.config import PipelineConfig
+    from gnn_track_finding.data import snapshots, trackml
+    from gnn_track_finding.models import pipeline
+    from gnn_track_finding.ops import metrics
 
     cfg = PipelineConfig(min_volume=args.volumes[0],
                          max_volume=args.volumes[1])
     t0 = time.time()
-    g0, _ = trackml.load_event(trackml.DEFAULT_EVENT, cfg,
+    g0, _ = trackml.load_event(
+        snapshots.for_volumes(cfg.min_volume, cfg.max_volume), cfg,
                                dtype=jnp.float64, with_tracker=False)
     gp = pipeline._prepare_jit(g0, cfg)
     print(f"[lut] volumes {args.volumes}: {g0.n_nodes} nodes / "
@@ -107,7 +108,7 @@ def main() -> None:
     # 3. clustering decisions at volume 7 (cheap compiled shapes) with
     # thresholds from the full-event calibration: fixed vs per-node
     cfg7 = PipelineConfig(min_volume=7, max_volume=7)
-    g7, _ = trackml.load_event(trackml.DEFAULT_EVENT, cfg7,
+    g7, _ = trackml.load_event("trackml_v7", cfg7,
                                dtype=jnp.float64, with_tracker=False)
     gp7 = pipeline._prepare_jit(g7, cfg7)
     thr7 = jnp.asarray(lut.thresholds_for(

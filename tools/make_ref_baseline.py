@@ -1,18 +1,18 @@
-"""Recreate the reference-pipeline baseline run in /tmp/ref_baseline.
+"""Recreate the reference-pipeline baseline run from a reference checkout.
 
 The parity suite (tests/test_reference_artifacts.py, tools/
 validate_vs_reference.py) compares this framework's device states against
 the *actual* reference pipeline's pickled outputs.  The reference cannot
 run unmodified on this machine, so this script builds a runnable copy:
 
-  1. copies /root/reference -> DEST (default /tmp/ref_baseline),
+  1. copies the reference checkout (--reference) -> DEST,
   2. installs a `filterpy` shim with filterpy-1.4.5-identical
      KalmanFilter.predict/update semantics (including the scalar-Q
      elementwise broadcast the reference relies on at
      extract_track_candidates.py:304 `g.Q = var_ms`),
   3. installs a `sitecustomize` that restores nx.read_gpickle /
      nx.write_gpickle (removed in networkx 3.x),
-  4. patches the copied sources (never /root/reference itself):
+  4. patches the copied sources (never the checkout itself):
        - event_conversion.py: skip helper.load_save_truth — its raw
          inputs (truth.csv/particles.csv/hits.csv) are absent from the
          checkout; the aggregated full-mapping CSV it would produce is
@@ -30,7 +30,7 @@ run unmodified on this machine, so this script builds a runnable copy:
      seconds the same way the reference's bash `$SECONDS` does.
 
 Usage:
-  python tools/make_ref_baseline.py [--dest /tmp/ref_baseline] [--run]
+  python tools/make_ref_baseline.py --reference DIR --dest DIR [--run]
       [--volumes 7 7]
 """
 
@@ -42,8 +42,6 @@ import shutil
 import subprocess
 import sys
 import time
-
-REFERENCE = "/root/reference"
 
 FILTERPY_KALMAN = '''\
 """filterpy.kalman shim: KalmanFilter with filterpy-1.4.5 semantics."""
@@ -232,11 +230,11 @@ PATCHES = [
 ]
 
 
-def build(dest: str, volumes: tuple[int, int]) -> None:
+def build(reference: str, dest: str, volumes: tuple[int, int]) -> None:
     if os.path.exists(dest):
         shutil.rmtree(dest)
-    print(f"copying {REFERENCE} -> {dest}")
-    shutil.copytree(REFERENCE, dest, ignore=shutil.ignore_patterns(".git"))
+    print(f"copying {reference} -> {dest}")
+    shutil.copytree(reference, dest, ignore=shutil.ignore_patterns(".git"))
 
     shims = os.path.join(dest, "shims")
     os.makedirs(os.path.join(shims, "filterpy", "kalman"))
@@ -283,12 +281,15 @@ def run(dest: str) -> int:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dest", default="/tmp/ref_baseline")
+    ap.add_argument("--reference", required=True,
+                    help="checkout of the reference repository (read only)")
+    ap.add_argument("--dest", required=True,
+                    help="where to build the runnable copy")
     ap.add_argument("--volumes", nargs=2, type=int, default=[7, 7])
     ap.add_argument("--run", action="store_true",
                     help="run the full pipeline after building the copy")
     args = ap.parse_args()
-    build(args.dest, tuple(args.volumes))
+    build(args.reference, args.dest, tuple(args.volumes))
     if args.run:
         sys.exit(run(args.dest))
 

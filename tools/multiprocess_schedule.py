@@ -48,21 +48,19 @@ def _common_setup():
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/repo/.jax_cache/cpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gnn_track_finding.utils import platform
+    platform.enable_compile_cache()
     return jax
 
 
 def _load_event():
     import jax.numpy as jnp
 
-    from gnn_track_finding_tpu.config import PipelineConfig
-    from gnn_track_finding_tpu.data import trackml
+    from gnn_track_finding.config import PipelineConfig
+    from gnn_track_finding.data import trackml
 
     cfg = PipelineConfig(min_volume=7, max_volume=7)
-    g, _ = trackml.load_event(trackml.DEFAULT_EVENT, cfg,
+    g, _ = trackml.load_event("trackml_v7", cfg,
                               dtype=jnp.float64, with_tracker=False)
     return g, cfg
 
@@ -70,7 +68,7 @@ def _load_event():
 def run_single() -> None:
     import numpy as np
     _common_setup()
-    from gnn_track_finding_tpu.models import pipeline
+    from gnn_track_finding.models import pipeline
     g, cfg = _load_event()
     _, acc, _ = pipeline.full_pipeline(g, cfg)
     np.save(REF_NPY, np.asarray(acc))
@@ -83,7 +81,7 @@ def run_worker(pid: int) -> None:
     jax = _common_setup()
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from gnn_track_finding_tpu.parallel import multihost
+    from gnn_track_finding.parallel import multihost
     multihost.initialize(coordinator_address=COORD, num_processes=2,
                          process_id=pid)
     assert jax.process_count() == 2 and len(jax.devices()) == 8
@@ -92,7 +90,7 @@ def run_worker(pid: int) -> None:
           f"local devices", flush=True)
 
     from jax.sharding import NamedSharding
-    from gnn_track_finding_tpu.parallel import edge_shard
+    from gnn_track_finding.parallel import edge_shard
 
     g, cfg = _load_event()
     mesh = edge_shard.edge_mesh(8)          # spans both processes
@@ -134,13 +132,13 @@ def run_dp_worker(pid: int) -> None:
     jax = _common_setup()
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from gnn_track_finding_tpu.parallel import multihost
+    from gnn_track_finding.parallel import multihost
     multihost.initialize(coordinator_address=COORD, num_processes=2,
                          process_id=pid)
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from gnn_track_finding_tpu.models import pipeline
+    from gnn_track_finding.models import pipeline
 
     n_events = 4
     lo, hi = multihost.local_event_slice(n_events)

@@ -9,7 +9,11 @@ reconstruction efficiency — bug-compatible mode, so a hit here is a
 configuration the patched reference can be re-run on for a two-sided
 comparison.
 
-Usage: python tools/sweep_efficiency.py [--volumes 9 9] [--quick]
+The efficiency needs the event's particle table, which the committed
+snapshots do not carry, so the event is read from the CSVs of a checkout
+of the reference repository (--reference).
+
+Usage: python tools/sweep_efficiency.py --reference DIR [--volumes 9 9] [--quick]
 """
 
 from __future__ import annotations
@@ -28,24 +32,26 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--volumes", nargs=2, type=int, default=[9, 9])
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--reference", required=True,
+                    help="checkout of the reference repository")
     args = ap.parse_args()
 
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache/cpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gnn_track_finding.utils import platform
+    platform.enable_compile_cache()
     import jax.numpy as jnp
 
-    from gnn_track_finding_tpu.config import PipelineConfig
-    from gnn_track_finding_tpu.data import trackml
-    from gnn_track_finding_tpu.evaluation import efficiency
-    from gnn_track_finding_tpu.models import pipeline
+    from gnn_track_finding.config import PipelineConfig
+    from gnn_track_finding.data import trackml
+    from gnn_track_finding.evaluation import efficiency
+    from gnn_track_finding.models import pipeline
 
     base = PipelineConfig(min_volume=args.volumes[0],
                           max_volume=args.volumes[1])
-    g0, host = trackml.load_event(trackml.DEFAULT_EVENT, base,
+    event = trackml.reference_event(args.reference)
+    g0, host = trackml.load_event(event, base,
                                   dtype=jnp.float64)
     print(f"[sweep] volumes {args.volumes}: {g0.n_nodes} nodes "
           f"{g0.n_edges} edges", file=_sys.stderr)
@@ -66,8 +72,7 @@ def main() -> None:
                                     tracker=getattr(host, "tracker", None))
         rep = efficiency.evaluate(
             [cand.nodes for cand in out.candidates], host,
-            trackml.DEFAULT_EVENT.particles_csv,
-            trackml.DEFAULT_EVENT.truth_csv, cfg)
+            event.particles_csv, event.truth_csv, cfg)
         jax.clear_caches()   # one jit cache per static cfg otherwise OOMs
         row = {"chi2_seed": cs, "kl_seed": ks, "c": c, "p": p, "iters": it,
                "candidates": len(out.candidates),

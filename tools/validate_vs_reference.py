@@ -16,7 +16,7 @@ Reference schema: `src/utilities/helper.py:432-450` state dicts as
 pickled by `helper.py:585-587`; updated states written by
 `extrapolate_merged_states.py:441-447`.
 
-Usage:
+Usage (on the GPU; JAX_PLATFORMS=cpu runs it on the CPU):
   python tools/validate_vs_reference.py [REF_OUTPUT_DIR]
   python tools/validate_vs_reference.py --digest [NPZ_PATH]
 """
@@ -51,15 +51,16 @@ def load_ref_graphs(directory: str):
 
 
 def compute_framework_states():
-    """Run the framework pipeline to the iteration-2 boundary (float64 CPU)
-    and return every array the parity comparison needs."""
+    """Run the framework pipeline on the volume-7 snapshot to the
+    iteration-2 boundary (float64, on the process's default device) and
+    return every array the parity comparison needs."""
     import jax
-    from gnn_track_finding_tpu.config import PipelineConfig
-    from gnn_track_finding_tpu.data import trackml
-    from gnn_track_finding_tpu.models import pipeline
+    from gnn_track_finding.config import PipelineConfig
+    from gnn_track_finding.data import trackml
+    from gnn_track_finding.models import pipeline
 
     cfg = PipelineConfig()
-    g, host = trackml.load_event(trackml.DEFAULT_EVENT, cfg)
+    g, host = trackml.load_event("trackml_v7", cfg)
     g = pipeline._prepare_jit(g, cfg)
 
     out = {"remap": {int(n): i for i, n in enumerate(host.node_ids)}}
@@ -201,11 +202,10 @@ def load_digest(path: str = DIGEST_PATH) -> dict:
 
 def run_validation(digest: dict | None = None, log=print) -> dict:
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    from gnn_track_finding.utils import platform
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache", "cpu"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    platform.require_gpu()
+    platform.enable_compile_cache()
     if digest is None:
         digest = load_digest()
     return compare(digest, compute_framework_states(), log=log)
